@@ -1,4 +1,4 @@
-// Fast integral-file parsing for pymes_tpu.
+// Fast integral-file parsing for pymes_jax.
 //
 // The reference delegated bulk I/O to CTF's parallel read/write
 // (pymes/util/fcidump.py:25, tcdump.py:14 — broken after the CTF
@@ -7,7 +7,7 @@
 // through a minimal C ABI consumed via ctypes (no pybind11 in this image).
 //
 // Build: g++ -O3 -march=native -shared -fPIC csrc/io_native.cpp -o
-//        pymes_tpu/_io_native.so   (driven by pymes_tpu/_native.py)
+//        pymes_jax/_io_native.so   (driven by pymes_jax/_native.py)
 
 #include <cstdint>
 #include <cstdlib>

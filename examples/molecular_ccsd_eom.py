@@ -12,10 +12,10 @@ import sys
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
-from pymes_tpu.integral.partition import part_2_body_int
-from pymes_tpu.mean_field import hf
-from pymes_tpu.solver import ccsd, eom_ccsd
-from pymes_tpu.util import checkpoint, fcidump
+from pymes_jax.integral.partition import part_2_body_int
+from pymes_jax.mean_field import hf
+from pymes_jax.solver import ccsd, eom_ccsd
+from pymes_jax.util import checkpoint, fcidump
 
 
 def main(fcidump_file):

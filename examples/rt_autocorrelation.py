@@ -14,11 +14,11 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from pymes_tpu.integral.partition import part_2_body_int
-from pymes_tpu.mean_field import hf
-from pymes_tpu.solver import ccsd
-from pymes_tpu.solver.rt_eom_ccsd import RT_EOM_CCSD
-from pymes_tpu.util import fcidump
+from pymes_jax.integral.partition import part_2_body_int
+from pymes_jax.mean_field import hf
+from pymes_jax.solver import ccsd
+from pymes_jax.solver.rt_eom_ccsd import RT_EOM_CCSD
+from pymes_jax.util import fcidump
 
 
 def main(nt=50, dt=0.1):

@@ -12,10 +12,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import numpy as np
 
-from pymes_tpu.mean_field import hf
-from pymes_tpu.models import ueg
-from pymes_tpu.solver import mp2
-from pymes_tpu.util.kpoints import gen_ir_ks
+from pymes_jax.mean_field import hf
+from pymes_jax.models import ueg
+from pymes_jax.solver import mp2
+from pymes_jax.util.kpoints import gen_ir_ks
 
 
 def tc_mp2(shift):

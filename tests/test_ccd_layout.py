@@ -1,9 +1,8 @@
 """Occupied-leading (ijab) loop layout == reference abij layout.
 
-The TPU tiles the trailing two axes of every array in (8, 128) lanes, so
-abij-layout tensors with no≈7 trailing pad ~18x (``benchmarks/
-probe_h_layout.py``); the ijab path re-indexes every contraction of the
-doubles residual (reference diagrams at ``pymes/solver/ccd.py:164``).
+The ijab path keeps the large virtual axes trailing (abij-layout tensors
+end in two occupied axes of size no≈7) and re-indexes every contraction of
+the doubles residual (reference diagrams at ``pymes/solver/ccd.py:164``).
 These tests pin element-exact agreement between the two layouts.
 """
 
@@ -12,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pymes_tpu.solver import ccd, mp2
+from pymes_jax.solver import ccd, mp2
 
 
 def _random_blocks(no, nv, seed=0, herm=True):
@@ -84,9 +83,9 @@ def test_full_solve_layouts_agree(contract_mode):
 def test_matrix_free_ladder_ij_layout():
     """ij-layout gather-ladder == abij gather-ladder == dense, and the
     full matrix-free CCD solve agrees across layouts."""
-    from pymes_tpu.models import ueg
-    from pymes_tpu.mean_field import hf
-    from pymes_tpu.ops.ueg_ladder import (build_ueg_ladder,
+    from pymes_jax.models import ueg
+    from pymes_jax.mean_field import hf
+    from pymes_jax.ops.ueg_ladder import (build_ueg_ladder,
                                           ueg_ladder_apply,
                                           ueg_ladder_apply_ij)
 
@@ -133,11 +132,11 @@ def test_matrix_free_ladder_ij_layout():
 def test_ccsd_layouts_agree_dense_and_matrix_free():
     """CCSD fixed point: ijab loop layout == abij, dense LiH-style random
     blocks AND the UEG matrix-free (T1-dressed gather ladder) path."""
-    from pymes_tpu.solver import ccsd
-    from pymes_tpu.models import ueg
-    from pymes_tpu.mean_field import hf
-    from pymes_tpu.integral.partition import part_2_body_int
-    from pymes_tpu.ops.ueg_ladder import build_ueg_ladder
+    from pymes_jax.solver import ccsd
+    from pymes_jax.models import ueg
+    from pymes_jax.mean_field import hf
+    from pymes_jax.integral.partition import part_2_body_int
+    from pymes_jax.ops.ueg_ladder import build_ueg_ladder
 
     # dense path on a random Hermitian V
     no, nv = 2, 6
@@ -203,7 +202,7 @@ def test_solver_api_defaults_to_ij_layout_and_oracle():
 def test_singles_residual_ij_matches_abij():
     """singles_residual_ij (no abij-layout temporary) is element-exact vs
     the abij-layout form, with a dense ovvv block present."""
-    from pymes_tpu.solver import ccsd
+    from pymes_jax.solver import ccsd
     no, nv = 3, 7
     n = no + nv
     rng = np.random.default_rng(21)
@@ -225,12 +224,12 @@ def test_singles_residual_ij_matches_abij():
 def test_dressed_block_out_perm_and_skip_identity():
     """out_perm permutes the dressed output; skip_identity drops exactly
     the T1-free term (so hoisted-base + corrections == full dressing)."""
-    from pymes_tpu.solver import ccsd
+    from pymes_jax.solver import ccsd
     no, nv = 3, 6
     n = no + nv
     rng = np.random.default_rng(22)
     V = rng.standard_normal((n, n, n, n)) * 0.05
-    from pymes_tpu.integral.partition import part_2_body_int
+    from pymes_jax.integral.partition import part_2_body_int
     dv = dict(part_2_body_int(no, jnp.asarray(V)))
     T1 = jnp.asarray(rng.standard_normal((nv, no)) * 0.04)
     full = ccsd.dressed_block("abij", dv, T1)

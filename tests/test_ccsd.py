@@ -9,9 +9,9 @@ import os
 import numpy as np
 import pytest
 
-from pymes_tpu.mean_field import hf
-from pymes_tpu.solver import ccd, ccsd
-from pymes_tpu.util import fcidump
+from pymes_jax.mean_field import hf
+from pymes_jax.solver import ccd, ccsd
+from pymes_jax.util import fcidump
 
 FCIDUMP_LIH = os.path.join(os.path.dirname(__file__), "data",
                            "FCIDUMP.LiH.321g")

@@ -2,9 +2,9 @@
 
 import numpy as np
 
-from pymes_tpu.mean_field import hf
-from pymes_tpu.solver import ccd
-from pymes_tpu.util import checkpoint, fcidump
+from pymes_jax.mean_field import hf
+from pymes_jax.solver import ccd
+from pymes_jax.util import checkpoint, fcidump
 
 import os
 

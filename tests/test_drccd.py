@@ -5,15 +5,15 @@ correlation energy must equal the plasmon formula
 ``E_c = ½(Σ ω_RPA − tr A)`` — a far stronger oracle than the reference's
 drCCD test (which has no assertion at all; and the reference's drCCD
 residual/energy wiring does not satisfy this identity, see
-``pymes_tpu/solver/ccd.py``/``drccd.py`` notes).
+``pymes_jax/solver/ccd.py``/``drccd.py`` notes).
 """
 
 import numpy as np
 from scipy.linalg import eigvalsh, sqrtm
 
-from pymes_tpu.mean_field import hf
-from pymes_tpu.models import ueg
-from pymes_tpu.solver import ccd
+from pymes_jax.mean_field import hf
+from pymes_jax.models import ueg
+from pymes_jax.solver import ccd
 
 
 def _rpa_matrices(V, eps_i, eps_a, no, nv):
@@ -63,7 +63,7 @@ def test_drccd_non_hermitian_blocks():
     non-Hermitian (TC-like) vertices as long as they keep particle-exchange
     symmetry, and get_residual must honour an explicit aijb that breaks it.
     """
-    from pymes_tpu.solver import drccd
+    from pymes_jax.solver import drccd
 
     rng = np.random.default_rng(7)
     no, nv = 3, 5

@@ -7,10 +7,10 @@ import os
 import numpy as np
 import pytest
 
-from pymes_tpu.integral.partition import part_2_body_int
-from pymes_tpu.mean_field import hf
-from pymes_tpu.solver import ccsd, eom_ccsd
-from pymes_tpu.util import fcidump
+from pymes_jax.integral.partition import part_2_body_int
+from pymes_jax.mean_field import hf
+from pymes_jax.solver import ccsd, eom_ccsd
+from pymes_jax.util import fcidump
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -71,7 +71,7 @@ def test_davidson_root_tracking_mom():
     ``root_tracking="guess"`` follows the guess-connected states
     adiabatically (the UEG H̄ at nP≥123 has exactly this structure —
     near-degenerate pairs at ≈−0.6 far below the physical excitations
-    at ≈5.25; benchmarks/probe_r4_eom219b.py)."""
+    at ≈5.25)."""
     rng = np.random.default_rng(3)
     no, nv, n_excit = 1, 4, 2
     dim = nv * no + (nv * no) ** 2
@@ -111,7 +111,7 @@ def test_eom_mp2():
     """EOM with MP2 amplitudes (undressed H, T2 = MP2): the reference
     documents this usage (``eom_ccsd.py:56-57``); excitations land near
     the EOM-CCSD values on H2/STO-6G."""
-    from pymes_tpu.solver import mp2
+    from pymes_jax.solver import mp2
 
     n_elec, nb, e_core, e_orb, h_pq, V_pqrs = fcidump.read(
         os.path.join(DATA, "FCIDUMP.H2.sto6g"))
@@ -149,7 +149,7 @@ def test_eom_ccsd_lih():
     dict_t_V = part_2_body_int(no, V_pqrs)
     f_dressed = mycc.get_T1_dressed_fock(fock, res["t1"], dict_t_V)
     # dressing only the 11 blocks the sigma builds touch must suffice
-    from pymes_tpu.solver.ccsd import EOM_DRESSED
+    from pymes_jax.solver.ccsd import EOM_DRESSED
     V_dressed = mycc.get_T1_dressed_V(res["t1"], dict_t_V,
                                       {k: None for k in EOM_DRESSED})
 
@@ -186,7 +186,7 @@ def test_hbar_factorized_sigma_equals_term_list():
 
 
 def test_hbar_sigma_ozaki_mode_matches_xla():
-    """The integer-MXU (ozaki) contraction backend through the factorized
+    """The sliced (ozaki) contraction backend through the factorized
     sigma agrees with the xla backend to f64-class accuracy — sizes above
     the ozaki dispatch threshold so the int8 path actually runs."""
     import jax.numpy as jnp
@@ -222,9 +222,9 @@ def test_davidson_space_exhausted_tiny_basis():
     returned zeros), and guess seeding must spill into the doubles
     block when n_excit exceeds the singles space (nov = 1)."""
     import os
-    from pymes_tpu.mean_field import hf
-    from pymes_tpu.solver import ccsd
-    from pymes_tpu.util import fcidump
+    from pymes_jax.mean_field import hf
+    from pymes_jax.solver import ccsd
+    from pymes_jax.util import fcidump
 
     data = os.path.join(os.path.dirname(__file__), "data")
     n_elec, nb, e_core, e_orb, h, V = fcidump.read(

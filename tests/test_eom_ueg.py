@@ -10,10 +10,10 @@ self-consistency: finite real roots, stable under subspace enlargement.
 import numpy as np
 import pytest
 
-from pymes_tpu.integral.partition import part_2_body_int
-from pymes_tpu.mean_field import hf
-from pymes_tpu.models import ueg
-from pymes_tpu.solver import ccsd, eom_ccsd
+from pymes_jax.integral.partition import part_2_body_int
+from pymes_jax.mean_field import hf
+from pymes_jax.models import ueg
+from pymes_jax.solver import ccsd, eom_ccsd
 
 
 @pytest.mark.slow
@@ -44,7 +44,7 @@ def test_ueg_eom_davidson_consistency():
     # pathological metallic spectrum (negative near-degenerate roots), so
     # tiny rounding differences between the two jaxprs can legitimately
     # select different roots.
-    from pymes_tpu.ops.ueg_ladder import build_ueg_ladder
+    from pymes_jax.ops.ueg_ladder import build_ueg_ladder
 
     assert float(np.abs(np.asarray(res["t1"])).max()) < 1e-10
     Vd_mf = {k: v for k, v in Vd.items() if k != "abcd"}
@@ -94,7 +94,7 @@ def test_matrix_free_sigma_t1_dressed():
     fd = cc.get_T1_dressed_fock(fock, res["t1"], dict_V)
     Vd = cc.get_T1_dressed_V(res["t1"], dict_V)
 
-    from pymes_tpu.ops.ueg_ladder import build_ueg_ladder
+    from pymes_jax.ops.ueg_ladder import build_ueg_ladder
     Vd_mf = {k: v for k, v in Vd.items() if k != "abcd"}
     Vd_mf["abcd"] = None
     Vd_mf["abcd_ladder"] = build_ueg_ladder(u, bra="all")
@@ -122,10 +122,10 @@ def test_matrix_free_sigma_no_ovvv_blocks():
     matrix-free CCSD).  Exact vs the dense-block factorized sigma at the
     Γ-point (T1 = 0, so undressed blocks are the dressed ones)."""
     import jax.numpy as jnp
-    from pymes_tpu.ops.ueg_ladder import (build_block_ladder,
+    from pymes_jax.ops.ueg_ladder import (build_block_ladder,
                                           build_ovvv_plans)
-    from pymes_tpu.solver import ccd, mp2
-    from pymes_tpu.mean_field import hf as hf_mod
+    from pymes_jax.solver import ccd, mp2
+    from pymes_jax.mean_field import hf as hf_mod
 
     u = ueg.UEG(14, 7, 7, 1.0)
     u.init_single_basis(2)
@@ -158,7 +158,7 @@ def test_matrix_free_sigma_no_ovvv_blocks():
     assert np.abs(np.asarray(W2a) - np.asarray(W2b)).max() < 1e-11
 
     # gather-plan variant of the same mode
-    from pymes_tpu.ops.ueg_ladder import build_ueg_ladder
+    from pymes_jax.ops.ueg_ladder import build_ueg_ladder
     V_mf["abcd_ladder"] = build_ueg_ladder(u, bra="all")
     dav3 = eom_ccsd.EOM_CCSD(no, n_excit=2)
     W1c, W2c = dav3._batched_sigma(jnp.asarray(fock), V_mf, U1, U2, T2)
@@ -172,7 +172,7 @@ def test_matrix_free_sigma_no_ovvv_t1_dressed():
     block T1 corrections.  Must equal the dense dressed-block sigma
     exactly."""
     import jax.numpy as jnp
-    from pymes_tpu.ops.ueg_ladder import (build_block_ladder,
+    from pymes_jax.ops.ueg_ladder import (build_block_ladder,
                                           build_ovvv_plans)
 
     u = ueg.UEG(14, 7, 7, 1.0)

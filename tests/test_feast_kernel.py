@@ -6,7 +6,7 @@ import os
 import numpy as np
 import pytest
 
-from pymes_tpu.solver import feast_kernel
+from pymes_jax.solver import feast_kernel
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -81,13 +81,13 @@ def test_feast_kernel_over_native_sigma():
     backend."""
     import jax.numpy as jnp
 
-    from pymes_tpu.integral.partition import part_2_body_int
-    from pymes_tpu.mean_field import hf
-    from pymes_tpu.solver import ccsd, eom_ccsd
-    from pymes_tpu.solver.eom_ccsd import (get_diag_doubles,
+    from pymes_jax.integral.partition import part_2_body_int
+    from pymes_jax.mean_field import hf
+    from pymes_jax.solver import ccsd, eom_ccsd
+    from pymes_jax.solver.eom_ccsd import (get_diag_doubles,
                                            get_diag_singles,
                                            sigma_doubles, sigma_singles)
-    from pymes_tpu.util import fcidump
+    from pymes_jax.util import fcidump
 
     n_elec, nb, e_core, e_orb, h_pq, V_pqrs = fcidump.read(
         os.path.join(DATA, "FCIDUMP.H2.sto6g"))
@@ -123,13 +123,13 @@ def test_feast_kernel_over_native_sigma():
 
 
 def test_pyscf_adapter_gated():
-    from pymes_tpu.solver import feast_eom_rccsd
+    from pymes_jax.solver import feast_eom_rccsd
     with pytest.raises(ImportError):
         feast_eom_rccsd.FEAST_EOMEESinglet(None)
 
 
 def test_kpoints_cubic_ir_mesh():
-    from pymes_tpu.util.kpoints import gen_ir_ks
+    from pymes_jax.util.kpoints import gen_ir_ks
     for n in (2, 3, 4):
         frac, weight = gen_ir_ks(n)
         assert np.isclose(weight.sum(), 1.0)
@@ -139,7 +139,7 @@ def test_kpoints_cubic_ir_mesh():
 
 
 def test_structure_poscar_roundtrip(tmp_path):
-    from pymes_tpu.util.structure import Structure
+    from pymes_jax.util.structure import Structure
     poscar = tmp_path / "POSCAR"
     poscar.write_text(
         "test cell\n1.5\n"
@@ -161,7 +161,7 @@ def test_structure_poscar_roundtrip(tmp_path):
 
 
 def test_structure_optimizer(tmp_path):
-    from pymes_tpu.util.structure import Optimizer, Structure
+    from pymes_jax.util.structure import Optimizer, Structure
     poscar = tmp_path / "POSCAR"
     poscar.write_text(
         "cell\n1.0\n"
@@ -182,7 +182,7 @@ def test_structure_optimizer(tmp_path):
 
 
 def test_cc4s_roundtrip(tmp_path):
-    from pymes_tpu.util import cc4s_interface
+    from pymes_jax.util import cc4s_interface
     os.chdir(tmp_path)
     t = np.arange(24, dtype=float).reshape(2, 3, 4)
     cc4s_interface.write_2_cc4s_tensor(t, [2, 3, 4], "T_test")
@@ -192,10 +192,10 @@ def test_cc4s_roundtrip(tmp_path):
 
 
 def test_structure_factor_ueg():
-    from pymes_tpu.mean_field import hf
-    from pymes_tpu.models import ueg
-    from pymes_tpu.solver import mp2
-    from pymes_tpu.util import structure_factor
+    from pymes_jax.mean_field import hf
+    from pymes_jax.models import ueg
+    from pymes_jax.solver import mp2
+    from pymes_jax.util import structure_factor
 
     u = ueg.UEG(14, 7, 7, 1.0)
     u.init_single_basis(2)

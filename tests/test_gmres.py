@@ -1,12 +1,12 @@
 """Device GMRES (no custom_linear_solve): accuracy vs dense solve, and
-operation inside matvecs built from non-linear primitives (the integer-
-MXU Ozaki path), which jax.scipy's gmres rejects."""
+operation inside matvecs built from non-linear primitives (the sliced
+Ozaki path), which jax.scipy's gmres rejects."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 
-from pymes_tpu.ops.gmres import gmres, richardson
+from pymes_jax.ops.gmres import gmres, richardson
 
 
 def _system(n, seed=0):
@@ -86,7 +86,7 @@ def test_gmres_with_ozaki_matvec():
     """The matvec runs through ozaki.matmul (trunc/bitcast primitives) —
     jax.scipy.sparse.linalg.gmres raises inside custom_linear_solve on
     this operator; ours just calls it."""
-    from pymes_tpu.ops import ozaki
+    from pymes_jax.ops import ozaki
     A, b = _system(64, seed=2)
     Aj = jnp.asarray(A)
 

@@ -12,7 +12,7 @@ import os
 import numpy as np
 import pytest
 
-from pymes_tpu.util import fcidump
+from pymes_jax.util import fcidump
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 LIH_TC = os.path.join(DATA, "FCIDUMP.LiH.tc")
@@ -86,7 +86,7 @@ def test_read_blocks_tc_matches_dense():
 
 
 def test_native_parser_d_exponents_and_validation():
-    _native = pytest.importorskip("pymes_tpu._native")
+    _native = pytest.importorskip("pymes_jax._native")
     v, i = _native.parse_integral_lines(
         "1.5D-03 1 2 3 4\n-2.0d+01 4 3 2 1\n")
     assert np.allclose(v, [1.5e-3, -20.0])

@@ -4,10 +4,10 @@ import os
 
 import numpy as np
 
-from pymes_tpu.mean_field import hf
-from pymes_tpu.models import ueg
-from pymes_tpu.solver import ccd
-from pymes_tpu.util import fcidump
+from pymes_jax.mean_field import hf
+from pymes_jax.models import ueg
+from pymes_jax.solver import ccd
+from pymes_jax.util import fcidump
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -25,8 +25,8 @@ def test_mixed_precision_ccd_matches_f64():
 def test_ccsd_blocks_dict_input():
     """CCSD accepts the pre-partitioned block dict (the memory-lean upload
     path for molecules: only the 16 blocks ever reach the device)."""
-    from pymes_tpu.integral.partition import part_2_body_int
-    from pymes_tpu.solver import ccsd as ccsd_mod
+    from pymes_jax.integral.partition import part_2_body_int
+    from pymes_jax.solver import ccsd as ccsd_mod
 
     n_elec, nb, e_core, e_orb, h_pq, V_pqrs = fcidump.read(
         os.path.join(DATA, "FCIDUMP.LiH.321g"))
@@ -67,7 +67,7 @@ def test_calc_gamma_ftod():
             break
     assert found
 
-    from pymes_tpu.util import cc4s_interface
+    from pymes_jax.util import cc4s_interface
     import tempfile
 
     with tempfile.TemporaryDirectory() as d:
@@ -79,7 +79,7 @@ def test_calc_gamma_ftod():
 
 
 def test_reference_import_alias():
-    """Reference-style import path works: pymes_tpu.model.ueg."""
-    from pymes_tpu.model import ueg as ueg_alias
-    from pymes_tpu.models import ueg as ueg_real
+    """Reference-style import path works: pymes_jax.model.ueg."""
+    from pymes_jax.model import ueg as ueg_alias
+    from pymes_jax.models import ueg as ueg_real
     assert ueg_alias.UEG is ueg_real.UEG

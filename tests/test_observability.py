@@ -4,10 +4,10 @@ import os
 
 import numpy as np
 
-from pymes_tpu.mean_field import hf
-from pymes_tpu.solver import ccd
-from pymes_tpu.util import fcidump
-from pymes_tpu.util.observability import RunRecord
+from pymes_jax.mean_field import hf
+from pymes_jax.solver import ccd
+from pymes_jax.util import fcidump
+from pymes_jax.util.observability import RunRecord
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 

@@ -11,7 +11,7 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from pymes_tpu.parallel import mesh as pmesh
+from pymes_jax.parallel import mesh as pmesh
 
 
 needs_8 = pytest.mark.skipif(len(jax.devices()) < 8,
@@ -21,7 +21,7 @@ needs_8 = pytest.mark.skipif(len(jax.devices()) < 8,
 @needs_8
 def test_sharded_ccsd_step_matches_single_device():
     import __graft_entry__ as g
-    from pymes_tpu.solver.ccsd import ccsd_iteration
+    from pymes_jax.solver.ccsd import ccsd_iteration
 
     no, nv = 2, 16
     f, dict_V, T1, T2, D_ai, D_abij, diis_state = g._synthetic_system(
@@ -54,7 +54,7 @@ def test_sharded_ccsd_step_2d_mesh():
     """2D virtual-by-virtual tensor parallelism (mesh (2,4) over a,b axes)
     must match the single-device step."""
     import __graft_entry__ as g
-    from pymes_tpu.solver.ccsd import ccsd_iteration
+    from pymes_jax.solver.ccsd import ccsd_iteration
 
     no, nv = 2, 16
     f, dict_V, T1, T2, D_ai, D_abij, diis_state = g._synthetic_system(
@@ -84,8 +84,8 @@ def test_sharded_ccsd_step_2d_mesh():
 def test_sharded_matrix_free_ladder():
     """The gather-plan ladder under a sharded T2: GSPMD must insert the
     collectives and reproduce the single-device result exactly."""
-    from pymes_tpu.models import ueg
-    from pymes_tpu.ops.ueg_ladder import build_ueg_ladder, ueg_ladder_apply
+    from pymes_jax.models import ueg
+    from pymes_jax.ops.ueg_ladder import build_ueg_ladder, ueg_ladder_apply
 
     u = ueg.UEG(14, 7, 7, 1.0)
     u.init_single_basis(3)   # nv divisible checks below
@@ -108,7 +108,7 @@ def test_sharded_matrix_free_ladder():
 def test_ring_ladder():
     """Ring-accumulated ladder (ppermute around the mesh) equals the dense
     contraction; T2 is never gathered whole on any device."""
-    from pymes_tpu.parallel.ring_ladder import ring_ladder
+    from pymes_jax.parallel.ring_ladder import ring_ladder
 
     rng = np.random.default_rng(0)
     no, nv, n_dev = 3, 16, 4
@@ -127,9 +127,9 @@ def test_ring_ladder_full_solve_oracle():
     ring-accumulated shard_map (ppermute) collective hits the UEG golden
     energy — CTF's distributed-contraction role inside the fixed point
     (VERDICT r1 task 2)."""
-    from pymes_tpu.mean_field import hf
-    from pymes_tpu.models import ueg
-    from pymes_tpu.solver import ccd
+    from pymes_jax.mean_field import hf
+    from pymes_jax.models import ueg
+    from pymes_jax.solver import ccd
 
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(5)
@@ -141,7 +141,7 @@ def test_ring_ladder_full_solve_oracle():
     n_dev = pmesh.largest_dividing_mesh(nv, 8)
     assert n_dev == 5
     m = pmesh.make_mesh(n_dev, axis_names=("a",))
-    from pymes_tpu.integral.partition import part_2_body_int
+    from pymes_jax.integral.partition import part_2_body_int
     dict_V = pmesh.shard_blocks(m, part_2_body_int(no, V))
 
     solver = ccd.CCD(no, is_diis=True)
@@ -156,7 +156,7 @@ def test_shard_over_nodes_fan_out():
     node-sharded inputs equals the replicated result (the device-mesh
     version of the reference's joblib contour fan-out,
     feast_eom_rccsd.py:90-108)."""
-    from pymes_tpu.parallel import sharding as psh
+    from pymes_jax.parallel import sharding as psh
 
     m = pmesh.make_mesh(8, axis_names=("n",))
     rng = np.random.default_rng(0)
@@ -178,9 +178,9 @@ def test_shard_over_nodes_fan_out():
 def test_sharded_ueg_ccd_oracle():
     """Full CCD solve with V/T sharded over 8 devices reproduces the UEG
     golden energy (the CTF-replacement end-to-end check)."""
-    from pymes_tpu.mean_field import hf
-    from pymes_tpu.models import ueg
-    from pymes_tpu.solver import ccd
+    from pymes_jax.mean_field import hf
+    from pymes_jax.models import ueg
+    from pymes_jax.solver import ccd
 
     nel, rs, cutoff = 14, 0.5, 5
     u = ueg.UEG(nel, 7, 7, rs)
@@ -195,7 +195,7 @@ def test_sharded_ueg_ccd_oracle():
     n_dev = pmesh.largest_dividing_mesh(nv, 8)
     assert n_dev == 5
     m = pmesh.make_mesh(n_dev, axis_names=("a",))
-    from pymes_tpu.integral.partition import part_2_body_int
+    from pymes_jax.integral.partition import part_2_body_int
     dict_V = pmesh.shard_blocks(m, part_2_body_int(no, V))
 
     solver = ccd.CCD(no, is_diis=True)
@@ -212,8 +212,8 @@ def test_block_ladder_sharded_over_sectors():
     import jax
     import jax.numpy as jnp
     from jax.sharding import Mesh
-    from pymes_tpu.models import ueg
-    from pymes_tpu.ops.ueg_ladder import (build_block_ladder,
+    from pymes_jax.models import ueg
+    from pymes_jax.ops.ueg_ladder import (build_block_ladder,
                                           block_ladder_apply_ij,
                                           shard_block_ladder)
 
@@ -244,14 +244,14 @@ def test_block_ladder_sharded_over_sectors():
 @needs_8
 def test_sharded_ccsd_lih_oracle_ozaki():
     """Full T1-dressed CCSD solve with the V blocks and amplitudes sharded
-    over the virtual mesh, per-shard contractions on the integer-MXU
+    over the virtual mesh, per-shard contractions on the sliced
     (ozaki) path — hits the published LiH/3-21G golden correlation energy
     (VERDICT r2 task 3: distributed CCSD, fast path composed)."""
     import os
-    from pymes_tpu.mean_field import hf
-    from pymes_tpu.solver import ccsd
-    from pymes_tpu.util import fcidump
-    from pymes_tpu.integral.partition import part_2_body_int
+    from pymes_jax.mean_field import hf
+    from pymes_jax.solver import ccsd
+    from pymes_jax.util import fcidump
+    from pymes_jax.integral.partition import part_2_body_int
 
     data = os.path.join(os.path.dirname(__file__), "data")
     n_elec, nb, e_core, e_orb, h, V = fcidump.read(
@@ -281,10 +281,10 @@ def test_sharded_mf_ccsd_noncanonical_ueg():
     plans under an 8-device mesh must reproduce the single-device
     dense-V CCSD solve."""
     from jax.sharding import Mesh
-    from pymes_tpu.mean_field import hf
-    from pymes_tpu.models import ueg
-    from pymes_tpu.solver import ccsd
-    from pymes_tpu.ops.ueg_ladder import (build_block_ladder,
+    from pymes_jax.mean_field import hf
+    from pymes_jax.models import ueg
+    from pymes_jax.solver import ccsd
+    from pymes_jax.ops.ueg_ladder import (build_block_ladder,
                                           build_ovvv_plans,
                                           shard_block_ladder)
 
@@ -306,7 +306,7 @@ def test_sharded_mf_ccsd_noncanonical_ueg():
     mesh = Mesh(np.array(jax.devices()[:8]), ("s",))
     plan = shard_block_ladder(
         build_block_ladder(u, bra="all", pad_sectors=8), mesh, axis="s")
-    from pymes_tpu.integral.partition import part_2_body_int
+    from pymes_jax.integral.partition import part_2_body_int
     dict_V = {k: v for k, v in part_2_body_int(
         no, jnp.asarray(V)).items() if k not in ("abcd", "iabc", "aibc",
                                                  "abic")}
@@ -318,11 +318,11 @@ def test_sharded_mf_ccsd_noncanonical_ueg():
 
 @needs_8
 def test_ring_ladder_ij_matches_dense_and_ozaki():
-    """Occupied-leading ring ladder (f64 and integer-MXU per-shard matmul)
+    """Occupied-leading ring ladder (f64 and sliced per-shard matmul)
     equals the dense contraction (VERDICT r2 task 3: ring x ijab x ozaki
     composition)."""
     from jax.sharding import NamedSharding, PartitionSpec as P
-    from pymes_tpu.parallel.ring_ladder import ring_ladder_inside_ij
+    from pymes_jax.parallel.ring_ladder import ring_ladder_inside_ij
 
     rng = np.random.default_rng(0)
     no, nv, n_dev = 3, 16, 4
@@ -345,12 +345,12 @@ def test_ring_ladder_ij_matches_dense_and_ozaki():
 @needs_8
 def test_ring_ladder_ij_full_solve_oracle():
     """Full CCD solve in the occupied-leading loop layout with the ladder
-    as the ring collective AND the per-shard matmul on the integer MXU —
+    as the ring collective AND the per-shard matmul as Ozaki slice products —
     hits the UEG golden energy (the previously-forbidden
     ring x ijab x ozaki combination, solver/ccd.py gate lifted)."""
-    from pymes_tpu.mean_field import hf
-    from pymes_tpu.models import ueg
-    from pymes_tpu.solver import ccd
+    from pymes_jax.mean_field import hf
+    from pymes_jax.models import ueg
+    from pymes_jax.solver import ccd
 
     u = ueg.UEG(14, 7, 7, 0.5)
     u.init_single_basis(5)
@@ -361,7 +361,7 @@ def test_ring_ladder_ij_full_solve_oracle():
     nv = V.shape[0] - no
     n_dev = pmesh.largest_dividing_mesh(nv, 8)
     m = pmesh.make_mesh(n_dev, axis_names=("a",))
-    from pymes_tpu.integral.partition import part_2_body_int
+    from pymes_jax.integral.partition import part_2_body_int
     dict_V = pmesh.shard_blocks(m, part_2_body_int(no, V))
 
     solver = ccd.CCD(no, is_diis=True)
@@ -383,11 +383,11 @@ def test_sharded_mf_ccsd_production_cutoff8_ozaki():
     padded to the mesh size, so the full 8-device mesh is used — no
     silent mesh shrink (asserted)."""
     from jax.sharding import Mesh
-    from pymes_tpu.mean_field import hf
-    from pymes_tpu.models import ueg
-    from pymes_tpu.solver import ccsd
-    from pymes_tpu.integral.partition import part_2_body_int
-    from pymes_tpu.ops.ueg_ladder import (build_block_ladder,
+    from pymes_jax.mean_field import hf
+    from pymes_jax.models import ueg
+    from pymes_jax.solver import ccsd
+    from pymes_jax.integral.partition import part_2_body_int
+    from pymes_jax.ops.ueg_ladder import (build_block_ladder,
                                           build_ovvv_plans,
                                           shard_block_ladder)
 

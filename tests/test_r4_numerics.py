@@ -1,8 +1,7 @@
 """Pin the round-4 numerics in the suite (VERDICT r4 task 3).
 
 Round 4 shipped four accuracy-critical mechanisms whose invariants were
-verified only in probe output (benchmarks/probe_r4_break.py,
-probe_r4_feast.py): the half-symmetric T1 dressing, the f32 carriers for
+first verified only by one-off probe scripts: the half-symmetric T1 dressing, the f32 carriers for
 dressing corrections, the mixed-precision FEAST linear solves, and the
 mixed-precision MOM-tracked Davidson default.  These tests assert each
 invariant directly so a refactor cannot silently degrade them.
@@ -10,7 +9,7 @@ invariant directly so a refactor cannot silently degrade them.
 Reference parity anchors: the dressing expands the same Λ-transform the
 reference hand-expands (``pymes/solver/ccsd.py:290-419``); the Davidson
 golden pair at UEG cutoff 10 is the degenerate 5.2402523x pair
-(benchmarks/RESULTS.md round-4 root-tracking table).
+(the round-4 root-tracking record).
 """
 
 import os
@@ -18,13 +17,13 @@ import os
 import numpy as np
 import pytest
 
-from pymes_tpu.integral.partition import part_2_body_int
-from pymes_tpu.mean_field import hf
-from pymes_tpu.models import ueg
-from pymes_tpu.solver import ccsd, eom_ccsd
-from pymes_tpu.solver.ccsd import dressed_block
-from pymes_tpu.solver.feast_eom_ccsd import FEAST_EOM_CCSD
-from pymes_tpu.util import fcidump
+from pymes_jax.integral.partition import part_2_body_int
+from pymes_jax.mean_field import hf
+from pymes_jax.models import ueg
+from pymes_jax.solver import ccsd, eom_ccsd
+from pymes_jax.solver.ccsd import dressed_block
+from pymes_jax.solver.feast_eom_ccsd import FEAST_EOM_CCSD
+from pymes_jax.util import fcidump
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -32,7 +31,7 @@ DATA = os.path.join(os.path.dirname(__file__), "data")
 def test_half_symmetric_dressing_equals_full_expansion():
     """S = dressed_block(half_symmetric=True) must satisfy
     S + P(ab,ij)·S == full dressing bit-near-exactly on a random T1/V
-    (probe_r4_break measured 5e-18; the terms are emitted pair-by-pair,
+    (measured 5e-18 in round 4; the terms are emitted pair-by-pair,
     so agreement is rounding-level, not truncation-level)."""
     rng = np.random.default_rng(11)
     no, nv = 3, 6
@@ -74,9 +73,9 @@ def test_half_symmetric_dressing_equals_full_expansion():
 def test_ccsd_f32_dressing_carriers_match_f64():
     """Matrix-free CCSD with the f32 dressing-correction carriers
     (``dress_precision="f32"``) must converge to the all-f64 dressing
-    energy to ≤1e-9 Ha on a T1≠0 system (probe_r4_break measured the
+    energy to ≤1e-9 Ha on a T1≠0 system (round 4 measured the
     correction error at 8.8e-10 of |V|; the fixed point self-corrects)."""
-    from pymes_tpu.ops.ueg_ladder import build_block_ladder, build_ovvv_plans
+    from pymes_jax.ops.ueg_ladder import build_block_ladder, build_ovvv_plans
 
     u = ueg.UEG(14, 7, 7, 1.0)
     u.init_single_basis(2)
@@ -106,8 +105,7 @@ def test_ccsd_f32_dressing_carriers_match_f64():
 def test_feast_mixed_precision_matches_f64_molecular():
     """FEAST with the default mixed linear solves (f32 Krylov + f64
     iterative refinement) must agree with the all-f64 solves to ≤1e-8 on
-    a molecular window (VERDICT r4 task 3c; the probe that checked it,
-    probe_r4_feast.py:112-141, was never recorded)."""
+    a molecular window (VERDICT r4 task 3c)."""
     n_elec, nb, e_core, e_orb, h_pq, V_pqrs = fcidump.read(
         os.path.join(DATA, "FCIDUMP.H2.sto6g"))
     no = n_elec // 2
@@ -140,9 +138,9 @@ def test_mixed_davidson_default_ueg_cutoff10_golden():
     the spurious negative basin exists (cutoff 10, nP=123): the two
     lowest roots are the degenerate 5.2402523x pair — lowest-real f64
     selection historically missed the partner, and an untracked mixed
-    run diverges into the −0.6 basin (RESULTS.md round-4 table)."""
-    from pymes_tpu.ops.ueg_ladder import build_block_ladder, build_ovvv_plans
-    from pymes_tpu.solver import ccd
+    run diverges into the −0.6 basin (round-4 record)."""
+    from pymes_jax.ops.ueg_ladder import build_block_ladder, build_ovvv_plans
+    from pymes_jax.solver import ccd
     import jax.numpy as jnp
 
     u = ueg.UEG(14, 7, 7, 0.5)

@@ -10,11 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from pymes_tpu.mean_field import hf
-from pymes_tpu.models import ueg
-from pymes_tpu.ops import ozaki
-from pymes_tpu.ops.ueg_ladder import build_block_ladder, build_ovvv_plans
-from pymes_tpu.solver import ccd, eom_ccsd
+from pymes_jax.mean_field import hf
+from pymes_jax.models import ueg
+from pymes_jax.ops import ozaki
+from pymes_jax.ops.ueg_ladder import build_block_ladder, build_ovvv_plans
+from pymes_jax.solver import ccd, eom_ccsd
 
 NEED = ('klij', 'ijab', 'abij', 'iajb', 'iabj', 'aibj', 'aijb',
         'ijka', 'ijak', 'iajk')

@@ -5,8 +5,8 @@ import os
 
 import numpy as np
 
-from pymes_tpu.integral import symmetry
-from pymes_tpu.util import tcdump
+from pymes_jax.integral import symmetry
+from pymes_jax.util import tcdump
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 
@@ -20,7 +20,7 @@ def test_sym_images_count():
 
 
 def test_index_codecs():
-    from pymes_tpu.integral.symmetry import (global_ind_2_list_inds,
+    from pymes_jax.integral.symmetry import (global_ind_2_list_inds,
                                              list_inds_2_global_ind)
     shape = (3, 4, 5, 6)
     for g in (0, 17, 359):
@@ -60,9 +60,9 @@ def test_tcdump_write_read_roundtrip(tmp_path):
 
 def test_brueckner_ccd():
     """Brueckner CCD on LiH: converges, lands near plain CCD."""
-    from pymes_tpu.mean_field import hf
-    from pymes_tpu.solver import ccd
-    from pymes_tpu.util import fcidump
+    from pymes_jax.mean_field import hf
+    from pymes_jax.solver import ccd
+    from pymes_jax.util import fcidump
 
     n_elec, nb, e_core, e_orb, h_pq, V_pqrs = fcidump.read(
         os.path.join(DATA, "FCIDUMP.LiH.321g"))
@@ -80,9 +80,9 @@ def test_brueckner_ccd():
 
 
 def test_mp2_blocked_matches_dense():
-    from pymes_tpu.mean_field import hf
-    from pymes_tpu.models import ueg
-    from pymes_tpu.solver import mp2
+    from pymes_jax.mean_field import hf
+    from pymes_jax.models import ueg
+    from pymes_jax.solver import mp2
 
     u = ueg.UEG(14, 7, 7, 1.0)
     u.init_single_basis(2)
@@ -100,7 +100,7 @@ def test_mp2_blocked_matches_dense():
 
 
 def test_ueg_sparse_matches_dense():
-    from pymes_tpu.models import ueg
+    from pymes_jax.models import ueg
 
     u = ueg.UEG(14, 7, 7, 1.0)
     u.init_single_basis(2)

@@ -9,10 +9,10 @@ import os
 import numpy as np
 
 
-from pymes_tpu.integral import contraction
-from pymes_tpu.mean_field import hf
-from pymes_tpu.solver import ccsd
-from pymes_tpu.util import fcidump, tcdump
+from pymes_jax.integral import contraction
+from pymes_jax.mean_field import hf
+from pymes_jax.solver import ccsd
+from pymes_jax.util import fcidump, tcdump
 
 DATA = os.path.join(os.path.dirname(__file__), "data")
 

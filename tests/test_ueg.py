@@ -11,9 +11,9 @@
 import numpy as np
 import pytest
 
-from pymes_tpu.mean_field import hf
-from pymes_tpu.models import ueg
-from pymes_tpu.solver import ccd, mp2
+from pymes_jax.mean_field import hf
+from pymes_jax.models import ueg
+from pymes_jax.solver import ccd, mp2
 
 
 def _ueg_coulomb_system(nel=14, rs=0.5, cutoff=5):
@@ -87,7 +87,7 @@ def test_twist_average_convergence():
     """Twist-averaged TC-HF/3-body/MP2 over irreducible 3³ vs 4³ meshes
     must agree to 1e-3 eV/electron (``test_ta_ueg.py:58-76``), using the
     native (spglib-free) cubic irreducible-mesh reduction."""
-    from pymes_tpu.util.kpoints import gen_ir_ks
+    from pymes_jax.util.kpoints import gen_ir_ks
 
     ta = []
     for ns in (3, 4):

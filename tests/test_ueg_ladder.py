@@ -3,10 +3,10 @@ full CCD oracle through the storage-free path."""
 
 import numpy as np
 
-from pymes_tpu.mean_field import hf
-from pymes_tpu.models import ueg
-from pymes_tpu.ops.ueg_ladder import build_ueg_ladder, ueg_ladder_apply
-from pymes_tpu.solver import ccd
+from pymes_jax.mean_field import hf
+from pymes_jax.models import ueg
+from pymes_jax.ops.ueg_ladder import build_ueg_ladder, ueg_ladder_apply
+from pymes_jax.solver import ccd
 
 
 def test_ladder_matches_dense():
@@ -49,9 +49,9 @@ def test_ladder_matches_dense_hermitian_tc():
 def test_dressed_ladder_matches_dense():
     """Matrix-free T1-dressed ladder (all-bra gather + rank-1 Λ) equals the
     dense dressed V̄_abcd contraction."""
-    from pymes_tpu.ops.ueg_ladder import dressed_ladder_apply
-    from pymes_tpu.solver.ccsd import get_T1_dressed_V
-    from pymes_tpu.integral.partition import part_2_body_int
+    from pymes_jax.ops.ueg_ladder import dressed_ladder_apply
+    from pymes_jax.solver.ccsd import get_T1_dressed_V
+    from pymes_jax.integral.partition import part_2_body_int
 
     u = ueg.UEG(14, 7, 7, 1.0)
     u.init_single_basis(2)
@@ -79,8 +79,8 @@ def test_ueg_ccsd_matrix_free_matches_dense():
     forces T1 ≡ 0, which would mask any defect in the T1-dressed ladder
     assembly (it did: an earlier version double-counted the bra-dressing
     terms, invisible at T1 = 0, caught by review)."""
-    from pymes_tpu.integral.partition import part_2_body_int
-    from pymes_tpu.solver import ccsd as ccsd_mod
+    from pymes_jax.integral.partition import part_2_body_int
+    from pymes_jax.solver import ccsd as ccsd_mod
 
     u = ueg.UEG(14, 7, 7, 1.0)
     u.init_single_basis(2)
@@ -138,9 +138,9 @@ def test_ueg_ccsd_fully_matrix_free_no_ovvv():
     on device (their T1 contractions run as momentum gathers; the singles
     ovvv term comes from the all-bra ladder W).  Must equal dense CCSD
     with genuinely nonzero T1 (VERDICT r1 task 6)."""
-    from pymes_tpu.integral.partition import part_2_body_int
-    from pymes_tpu.ops.ueg_ladder import build_ovvv_plans
-    from pymes_tpu.solver import ccsd as ccsd_mod
+    from pymes_jax.integral.partition import part_2_body_int
+    from pymes_jax.ops.ueg_ladder import build_ovvv_plans
+    from pymes_jax.solver import ccsd as ccsd_mod
 
     u = ueg.UEG(14, 7, 7, 1.0)
     u.init_single_basis(2)
@@ -171,7 +171,7 @@ def test_block_ladder_matches_dense_and_solves():
     Coulomb + hermitian-TC + all-bra, and drives the full matrix-free CCD
     solve to the same fixed point as the gather plan."""
     import jax.numpy as jnp
-    from pymes_tpu.ops.ueg_ladder import (build_block_ladder,
+    from pymes_jax.ops.ueg_ladder import (build_block_ladder,
                                           block_ladder_apply,
                                           block_ladder_apply_ij)
 
@@ -206,7 +206,7 @@ def test_block_ladder_matches_dense_and_solves():
         klij=Vj[:no, :no, :no, :no], ijab=Vj[:no, :no, no:, no:],
         abij=Vj[no:, no:, :no, :no], iajb=Vj[:no, no:, :no, no:],
         iabj=Vj[:no, no:, no:, :no], abcd=None, ladder=bp)
-    from pymes_tpu.solver import mp2
+    from pymes_jax.solver import mp2
     _, T0 = mp2.solve(eps_i, eps_a, blocks.ijab, blocks.abij, -1.0)
     e_ref = None
     for layout in ("abij", "ijab"):
@@ -222,7 +222,7 @@ def test_block_ladder_matches_dense_and_solves():
     e_d, *_ = ccd.ccd_solve_jit(fock, blocks_d, no, T0, level_shift=-1.0,
                                 delta_e=1e-10, max_iter=80)
     assert abs(e_ref - float(e_d)) < 1e-10
-    # ozaki block path (sector matmuls on the integer MXU)
+    # ozaki block path (sector matmuls as Ozaki slice products)
     e_oz, *_ = ccd.ccd_solve_jit(fock, blocks, no, T0, level_shift=-1.0,
                                  delta_e=1e-10, max_iter=80,
                                  contract_mode="ozaki:9:9", layout="ijab")
@@ -232,9 +232,9 @@ def test_block_ladder_matches_dense_and_solves():
 def test_block_ladder_ccsd_dressed():
     """Matrix-free CCSD through the BlockLadder all-bra plan with nonzero
     T1 equals the dense CCSD (same setup as the no-ovvv test)."""
-    from pymes_tpu.integral.partition import part_2_body_int
-    from pymes_tpu.solver import ccsd as ccsd_mod
-    from pymes_tpu.ops.ueg_ladder import build_block_ladder
+    from pymes_jax.integral.partition import part_2_body_int
+    from pymes_jax.solver import ccsd as ccsd_mod
+    from pymes_jax.ops.ueg_ladder import build_block_ladder
 
     u = ueg.UEG(14, 7, 7, 1.0)
     u.init_single_basis(2)
@@ -278,7 +278,7 @@ def test_no_momentum_violating_integrals_cutoff10():
     viol = np.abs(Kpq[p, q] - Kpq[r, s]).max(axis=1) > 0
     assert int(viol.sum()) == 0
 
-    from pymes_tpu.ops.ueg_ladder import (build_block_ladder,
+    from pymes_jax.ops.ueg_ladder import (build_block_ladder,
                                           block_ladder_apply)
     no = 7
     nv = u.n_spatial - no
@@ -296,7 +296,7 @@ def test_block_ladder_non_hermitian_tc():
     sector blocks carry the rs-dependent term −(kp_c−kp_d)·q·u(q²)/Ω, so
     the block ladder equals the dense abcd block for is_only_2b and
     is_only_non_hermi_2b — including with a twist shift."""
-    from pymes_tpu.ops.ueg_ladder import build_block_ladder, ladder_apply
+    from pymes_jax.ops.ueg_ladder import build_block_ladder, ladder_apply
 
     rng = np.random.default_rng(3)
     for flags, shift in (({"is_only_2b": True}, (0.0, 0.0, 0.0)),
@@ -333,7 +333,7 @@ def test_ueg_ccd_non_hermitian_matrix_free_matches_dense():
     equals the dense-abcd solve to 1e-10 (VERDICT r2 task 6 'done'
     criterion, at the cutoff-5 oracle size)."""
     import jax.numpy as jnp
-    from pymes_tpu.ops.ueg_ladder import build_block_ladder
+    from pymes_jax.ops.ueg_ladder import build_block_ladder
 
     nel, rs, cutoff = 14, 1.0, 3
     no = nel // 2
@@ -351,7 +351,7 @@ def test_ueg_ccd_non_hermitian_matrix_free_matches_dense():
     res_dense = solver.solve(jnp.asarray(fock), jnp.asarray(V),
                              level_shift=-3.0, max_iter=6, delta_e=1e-30)
 
-    from pymes_tpu.solver.ccd import blocks_from_full
+    from pymes_jax.solver.ccd import blocks_from_full
     blk = blocks_from_full(no, jnp.asarray(V))
     blocks = blk._replace(abcd=None,
                           ladder=build_block_ladder(u, correlator=u.yukawa,
@@ -372,7 +372,7 @@ def test_ueg_ccd_non_hermitian_matrix_free_matches_dense():
 
 def test_ovvv_gather_j_leading_matches():
     """Occupied-leading ovvv gather must equal the trailing-j original."""
-    from pymes_tpu.ops.ueg_ladder import (build_ovvv_plans, ovvv_t1_apply,
+    from pymes_jax.ops.ueg_ladder import (build_ovvv_plans, ovvv_t1_apply,
                                           ovvv_t1_apply_j)
     u = ueg.UEG(14, 7, 7, 1.0)
     u.init_single_basis(2)

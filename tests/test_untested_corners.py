@@ -15,7 +15,7 @@ import jax.numpy as jnp
 
 def test_tcfactors_h5_fixture(tmp_path):
     h5py = pytest.importorskip("h5py")
-    from pymes_tpu.util import tcfactors
+    from pymes_jax.util import tcfactors
 
     n_orb, n_grid = 4, 10
     rng = np.random.default_rng(2)
@@ -62,7 +62,7 @@ def test_feast_pyscf_adapter_against_mock():
     """FEAST_EOMEESinglet driven by a mock with the PySCF interface shape
     must find the eigenvalue inside the window (the H2O oracle itself
     needs pyscf, absent here — reference test_feast_pyscf.py:10-60)."""
-    from pymes_tpu.solver.feast_eom_rccsd import FEAST_EOMEESinglet
+    from pymes_jax.solver.feast_eom_rccsd import FEAST_EOMEESinglet
 
     rng = np.random.default_rng(5)
     dim = 24
@@ -80,7 +80,7 @@ def test_feast_pyscf_adapter_against_mock():
 
 def test_cifrt_pyscf_adapter_against_mock():
     """One CIFRT step through the adapter = exp(i·H·dt)·u (normalized)."""
-    from pymes_tpu.solver.feast_eom_rccsd import CIFRT_EOMEESinglet
+    from pymes_jax.solver.feast_eom_rccsd import CIFRT_EOMEESinglet
 
     rng = np.random.default_rng(6)
     dim = 12
@@ -106,7 +106,7 @@ def test_cifrt_pyscf_adapter_against_mock():
 def test_optimizer_supercell_projection():
     """Supercell→primitive force projection + relaxation step
     (reference structure.py:395-440)."""
-    from pymes_tpu.util.structure import Structure, \
+    from pymes_jax.util.structure import Structure, \
         relax_primitive_from_supercell
 
     # primitive: 2 atoms in a unit cube; supercell: 2x1x1 copies
